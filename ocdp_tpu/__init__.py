@@ -1,4 +1,4 @@
-"""ocdp_tpu — TPU-native optimal-control dynamic-programming framework.
+"""ocdp_tpu — accelerator-native optimal-control dynamic-programming framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``abdolrezat/Optimal-Control-Dynamic-Programming`` (backward Bellman value

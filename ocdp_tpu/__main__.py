@@ -29,9 +29,8 @@ def _add_common(p):
     p.add_argument("--sweeps", type=int, default=None,
                    help="override number of sweeps")
     p.add_argument("--impl", default="auto",
-                   choices=["auto", "stencil", "gather", "pallas",
-                            "basegather", "sheargather", "rowlane",
-                            "rowband"])
+                   choices=["auto", "stencil", "gather", "basegather",
+                            "sheargather", "rowlane", "rowband"])
     p.add_argument("--edge", default=None,
                    choices=["extrapolate", "clamp"],
                    help="out-of-grid value policy for the attitude solvers "
@@ -247,7 +246,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     from .profiling import enable_compilation_cache
 
-    enable_compilation_cache()   # big Mosaic kernels compile once per cache
+    enable_compilation_cache()   # big kernels compile once per cache
     if args.cmd == "bench":
         import pathlib
         import runpy

@@ -1,6 +1,6 @@
 """Verification / diagnostics (SURVEY.md L7).
 
-TPU equivalents of the reference's quality gates:
+JAX equivalents of the reference's quality gates:
 * ``compare_solutions`` — regression by equality on saved solves, the
   ``compare_data(obj1, obj2)`` check (test/Dynamic_Solver.m:266-280): exact
   by default, tolerance-based on request.

@@ -114,7 +114,7 @@ def value_iteration_finite(
 
     ``backup``: optional callable ``values -> BackupResult`` replacing the
     default gather-based fused backup — e.g. a
-    :class:`~ocdp_tpu.ops.stencil.StencilBackup` (fast path on TPU).
+    :class:`~ocdp_tpu.ops.stencil.StencilBackup`.
 
     ``probe_window``: optional tuple of ``(start, size)`` per state dim; the
     engine then captures that window of V after every sweep (the reference's
@@ -178,13 +178,11 @@ def value_iteration_finite(
             tick(i)
             return out, None
 
-        a0 = jnp.zeros((backup.carry_rows, backup.NEp), adt)
+        a0 = jnp.zeros(backup.carry_shape, adt)
         (v2p, argm), _ = jax.lax.scan(sweep_carry, (backup.pad_carry(v), a0),
                                       jnp.arange(num_sweeps))
-        # FLAT-plan results stay in the flat (rows, lanes) layout: a 6-D
-        # array with small trailing dims pays ~8x TPU tile padding as a jit
-        # OUTPUT (the 439M-cell envelope wall was this buffer, not the
-        # sweeps). Small non-flat problems keep the state shape.
+        # FLAT-plan results stay in the flat (rows, lanes) layout; small
+        # non-flat problems keep the state shape.
         values = backup.unpad_values(v2p)
         argmin = backup.unpad_argmin(argm)
         if not narrow_argmin_result:
@@ -338,13 +336,9 @@ def value_iteration_converged(
     if getattr(backup, "carry_padded", False):
         # padded-carry mode (see value_iteration_finite): the while_loop
         # carry is the kernel's padded table. Checksums slice out the real
-        # (NW, NE) block — pad ROWS are re-zeroed in-kernel, but pad LANES
-        # hold finite duplicated-lane-0 garbage that must not reach the
-        # reference's errorF/errorU stop rule.
-        pt, nw, ne = backup.pad_top, backup.NW, backup.NE
-
-        def real_block(a):
-            return a[pt:pt + nw, :ne]
+        # (NW, NE) block so the reference's errorF/errorU stop rule sums
+        # exactly the plain path's cells.
+        real_block = backup.unpad_values
 
         v2p, argm, k_s, converged, checks = run_loop(
             lambda vc, ac: backup.sweep_carry(vc),
@@ -352,7 +346,7 @@ def value_iteration_converged(
             lambda a2: jnp.sum(real_block(a2).astype(jnp.float32),
                                dtype=jnp.float32),
             backup.pad_carry(v),
-            jnp.zeros((backup.carry_rows, backup.NEp), adt))
+            jnp.zeros(backup.carry_shape, adt))
         values = backup.unpad_values(v2p)
         argmin = backup.unpad_argmin(argm).astype(pdt)
         if len(plan.query_shape) == plan.ndim + 1:   # non-flat plan

@@ -1,6 +1,6 @@
 """State/action grid construction.
 
-TPU-native re-design of the reference's grid layer (SURVEY.md L1):
+JAX re-design of the reference's grid layer (SURVEY.md L1):
 
 * ``linspace`` grids — ``test/Dynamic_Solver.m:69-75`` builds the Kirk state
   range with ``single(linspace(x_min, x_max, dx))``.

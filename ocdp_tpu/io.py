@@ -4,7 +4,7 @@ The reference saves each channel controller to a ``.mat`` file —
 ``save(file_name,'F_gI','U_Optimal_id','f0_allcomb',...)``
 (pos-att/Solver_pos_att.m:289) — and reloads it with ``set_controller``
 (:849-884), which rebuilds 'nearest' interpolants of the per-thruster force
-tables ``f*_allcomb(U_Optimal_id)``. TPU-native equivalent: compressed npz
+tables ``f*_allcomb(U_Optimal_id)``. Equivalent here: compressed npz
 holding the grid axes, value table, argmin table, and the pruned
 thruster-combination force matrix; loading reconstructs the same
 nearest-neighbor force lookups on device.

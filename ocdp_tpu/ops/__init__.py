@@ -13,11 +13,11 @@ __all__ = [
 ]
 
 
-def default_impl(tpu_impl: str, cpu_impl: str = "stencil") -> str:
-    """Resolve ``impl='auto'``: the bench-winning Mosaic path on a real TPU,
-    the portable XLA stencil elsewhere (interpret-mode Pallas is orders of
-    magnitude slower than the stencil on CPU). Callers fall back to
-    ``cpu_impl`` if the fast path's build raises (e.g. ShearBandError)."""
+def default_impl(gpu_impl: str, cpu_impl: str = "stencil") -> str:
+    """Resolve ``impl='auto'`` per platform: ``gpu_impl`` on a GPU backend,
+    ``cpu_impl`` (the XLA stencil by default) on the CPU. Kernels never
+    fall back to the Pallas interpreter on their own; interpret mode is an
+    explicit argument for tests."""
     import jax
 
-    return tpu_impl if jax.default_backend() == "tpu" else cpu_impl
+    return gpu_impl if jax.default_backend() == "gpu" else cpu_impl

@@ -1,6 +1,6 @@
 """The fused Bellman backup: interpolate + stage-cost add + argmin sweep.
 
-This is the hot op of the whole framework — the TPU-native equivalent of the
+This is the hot op of the whole framework — the JAX equivalent of the
 reference's
 
     J_F_next = F(X_next_M1, X_next_M2)

@@ -13,8 +13,8 @@ has a special query geometry the generic banded stencil can't exploit:
 
 The generic stencil serves the same queries with ``O(taps^2 * A)`` dense
 weight tensors (``[off==t](1-f)+[off==t-1]f`` over the full (N1,N2,A) grid
-per tap — measured VPU-bound at 63 us/sweep on a v5e after the edge-split
-optimization). This operator reads the SAME plan and performs the same
+per tap — elementwise-bound even after the edge-split optimization).
+This operator reads the SAME plan and performs the same
 multilinear interpolation with ~6 statically-sliced FMA passes per action
 (exact plan fracs as (N1,1)/(N1,N2) broadcasts; no tap masks at all), then
 first-min over actions — an ~4x FLOP cut.

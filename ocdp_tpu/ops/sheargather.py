@@ -2,16 +2,15 @@
 
 The fast path for problems whose interpolation geometry is (near-)affine in
 the state indices — Kirk's LTI regulator above all (x' = A x + B u,
-test/Dynamic_Solver.m:184-194). Profiling on the v5e showed both existing
-fast paths hit hard walls on the full Kirk workload (100x100 x 1000):
+test/Dynamic_Solver.m:184-194). The two generic fast paths scale badly on
+the full Kirk workload (100x100 x 1000):
 
-* the banded stencil (``ops/stencil.py``) is VPU-roofline-bound: its band
+* the banded stencil (``ops/stencil.py``) is elementwise-bound: its band
   must cover the query drift across ALL state cells (state shear + stretch
-  + extrapolation clamping = 27-47 taps), costing ~1500 VPU ops per
-  state-action eval — measured 1.5 s / 1.3e9 evals/s;
-* per-query gathers run at ~6.6 ns/element on the v5e's scalar gather path
-  (measured on ``ops/basegather.py``), so anything that gathers per QUERY
-  (1e7/sweep) is 5-10x slower still.
+  + extrapolation clamping = 27-47 taps), costing ~1500 elementwise ops
+  per state-action eval;
+* anything that gathers per QUERY (``ops/basegather.py``) issues 1e7
+  gathers per sweep.
 
 This module does neither. All interpolation geometry is static across
 sweeps, so on the host we fit, per state axis k, an affine **shear map**
@@ -30,7 +29,7 @@ verified offset delta from its own cell: the runtime selects it with a
 per-axis select-chain over a few static slices of a per-chunk window —
 ``sum_delta [j_k(q) == delta] * W[x + delta]`` — which is an exact copy
 (zeros add exactly; exactly one match, verified at build). Per-eval cost
-is ~150-200 VPU ops instead of ~1500.
+is ~150-200 elementwise ops instead of ~1500.
 
 Weight algebra and summation order replicate ``ops/backup.py``'s corner
 loop exactly (same products, same corner order), so results are bitwise
@@ -108,12 +107,11 @@ class ShearGatherBackup:
         # 2^d corner tables in ONE row-gather. Corner (c_0..c_{d-1}) lives
         # at corner_idx + sum c_k*stride_k (G <= n-2, so +1 per axis never
         # leaves the true grid — extrapolation is in the unclamped fracs,
-        # ops/interp.py:46-61). TPU gathers cost ~6 ns per INDEX, near-
-        # independent of the slice width (measured: 4 separate takes
-        # 0.97 ms, one minor-dim-2^d row gather 0.18 ms on the Kirk
-        # lattice) — so stack 2^d statically-shifted copies of v_flat on
-        # the minor axis and gather each lattice point's corners as one
-        # row. Bitwise-identical elements either way.
+        # ops/interp.py:46-61). A gather's cost tracks the number of
+        # INDICES more than the slice width, so stack 2^d statically-
+        # shifted copies of v_flat on the minor axis and gather each
+        # lattice point's corners as one row. Bitwise-identical elements
+        # either way.
         corner_list = list(itertools.product((0, 1), repeat=d))
         offs = [int(sum(c * strides[k] for k, c in enumerate(corner)))
                 for corner in corner_list]
@@ -126,9 +124,8 @@ class ShearGatherBackup:
 
         # Phase-split every corner table along upsampled axes (ONE strided
         # slice per (corner, phase) per sweep) so the per-(chunk, delta)
-        # leaf reads below are unit-stride slices. Strided slices do NOT
-        # fuse on TPU — profiled at ~2.6us each, 1400+ per sweep they were
-        # 69% of sweep time; unit-stride slices fuse into the select chain.
+        # leaf reads below are unit-stride slices, which fuse into the
+        # select chain (1400+ strided slices per sweep need not).
         phases = list(itertools.product(*[range(s) for s in self.upsample]))
         cphase = {}
         for corner, t in corners.items():
@@ -330,7 +327,7 @@ def build_sheargather_backup(
     # search near the zero offset first so matches cluster tightly around
     # the band center — the band is then TRIMMED to the deltas actually
     # used (the conservative estimate above often over-covers by 2-3x,
-    # and runtime cost is 4 * 2 * prod(n_band) VPU ops per eval).
+    # and runtime cost is 4 * 2 * prod(n_band) elementwise ops per eval).
     zero_pt = tuple(int(-band_lo[k]) for k in range(d))
     order = sorted(itertools.product(*[range(nb) for nb in n_band]),
                    key=lambda ds: sum(abs(ds[k] - zero_pt[k])
@@ -366,10 +363,10 @@ def build_sheargather_backup(
         n_band = tuple(used_hi[k] - used_lo[k] + 1 for k in range(d))
 
     # Device layout: the chunk axis sits SECOND-minor — (C, s0..s_{d-2},
-    # chunk, s_last) — so every elementwise op runs across a full state
-    # lane axis and the per-chunk min/argmin reduces over SUBLANES.
-    # (Chunk-minor layout measured 30% of sweep time in the per-chunk
-    # iota-reduce: a 20-wide lane axis wastes 6/7 of the VPU.)
+    # chunk, s_last) — so every elementwise op runs along a full state
+    # axis in the minor dimension and the per-chunk min/argmin reduces
+    # over the second-minor one (a 20-wide minor axis would leave most of
+    # each vector op idle).
     def dev_layout(a):
         return np.ascontiguousarray(np.moveaxis(np.moveaxis(
             a.reshape(state_shape + (n_chunks, action_chunk)), -2, 0),

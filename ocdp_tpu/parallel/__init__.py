@@ -1,9 +1,9 @@
 """Multi-chip execution: state-grid and action-axis sharding over a device mesh.
 
 The reference is a single MATLAB process with no parallelism of any kind
-(SURVEY.md §2.5); this package is the TPU-native scaling layer mandated by the
-north star: shard the DP backup over `jax.sharding.Mesh` axes with XLA
-collectives over ICI.
+(SURVEY.md §2.5); this package is the scaling layer mandated by the north
+star: shard the DP backup over `jax.sharding.Mesh` axes with XLA
+collectives between the devices.
 """
 
 from .halo import value_iteration_converged_halo, value_iteration_finite_halo

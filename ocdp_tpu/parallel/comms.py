@@ -4,10 +4,7 @@ The multi-chip budget math (NOTES.md) needs a comms TERM, not an adjective:
 these helpers compile a sharded sweep and count the bytes every
 ``collective-permute`` in the optimized HLO actually moves (the halo
 exchange is the only collective in a finite halo sweep), cross-checked
-against the analytic halo size from the kernel's tap reach. See
-``scripts/comms_budget.py`` for the nominal-config projection that folds in
-public ICI bandwidth numbers (How to Scale Your Model,
-jax-ml.github.io/scaling-book).
+against the analytic halo size from the kernel's tap reach.
 """
 
 from __future__ import annotations
@@ -26,7 +23,7 @@ def collective_permute_bytes(hlo_text: str) -> int:
     Parses each op's RESULT shape from its defining line — what XLA will
     actually put on the wire per execution, per participating device.
     Counts BOTH the sync form (``collective-permute(`` — what the CPU
-    backend emits) and the async form XLA:TPU rewrites it into
+    backend emits) and the async form accelerator backends rewrite it into
     (``collective-permute-start(``; its result is a tuple whose first
     element is the payload, which is what the leading-shape parse picks
     up). ``collective-permute-done`` carries no payload of its own and is

@@ -2,10 +2,10 @@
 
 The replicated-table engine (``parallel/sharded.py``) all_gathers the whole
 table every sweep — fine when the table is small next to the S x A query
-work. For HBM-budget-bound grids (the 6-D attitude family, SURVEY.md §5
-"long context" analog) the TPU-native design is to keep each device's value
+work. For memory-bound grids (the 6-D attitude family, SURVEY.md §5
+"long context" analog) the design is to keep each device's value
 BLOCK resident and exchange only the **interpolation stencil boundary
-slabs** with ring neighbors over ICI (`ppermute`) — functionally the
+slabs** with ring neighbors (`ppermute`) — functionally the
 ring-attention neighbor pass:
 
 * the state grid's axis 0 is blocked across the mesh axis; device d owns
@@ -17,7 +17,7 @@ ring-attention neighbor pass:
 * edge devices receive zeros from the missing neighbor, which matches the
   single-chip stencil's zero padding exactly (out-of-band taps have
   identically-zero weights);
-* per-sweep ICI traffic is O(halo x row) per device vs O(whole table) for
+* per-sweep traffic is O(halo x row) per device vs O(whole table) for
   the all_gather engine.
 
 Requires halo width <= block height (reach spanning more than one neighbor

@@ -1,25 +1,24 @@
-"""Row-sharded 6-D attitude value iteration: halo exchange + Pallas kernel.
+"""Row-sharded 6-D attitude value iteration: halo exchange + row/lane kernel.
 
 Scales the flagship full-attitude solve (attitude-control/
-Solver_attitude.m:261-300) past one chip: the single-chip Pallas kernel
-(``ops/pallas_backup6.py``) holds the (omega-rows x Euler-lanes) value
-table on one chip (VMEM-resident when small, HBM + DMA'd tap windows past
-~11M cells — NOTES.md "6-D single-chip envelope"); past one chip's HBM or
-for wall-clock scaling, here the table's ROW axis (the flat
-omega index) is sharded across a mesh axis; each sweep exchanges only the
-kernel's row-tap reach with ring neighbors over ICI (`ppermute`) — the same
-boundary-slab pattern as ``parallel/halo.py``, at 6-D scale:
+Solver_attitude.m:261-300) past one device: the single-device row/lane
+kernel (``ops/pallas_backup6.py``) holds the (omega-rows x Euler-lanes)
+value table on one device; past one device's memory or for wall-clock
+scaling, here the table's ROW axis (the flat omega index) is sharded
+across a mesh axis; each sweep exchanges only the kernel's row-tap reach
+with its neighbors (`ppermute`) — the same boundary-slab pattern as
+``parallel/halo.py``, at 6-D scale:
 
 * device d owns rows [d*B, (d+1)*B) of the (NWp = n_dev*B)-row table;
 * left halo = bottom ``pad_top`` rows of the left neighbor, right halo =
   top ``pad_bot`` rows of the right neighbor (widths = the kernel's flat
-  row-tap span + sublane alignment, known at build time);
+  row-tap span, known at build time);
 * edge devices receive ppermute's zeros, matching the single-chip zero
   padding exactly; out-of-range taps carry identically-zero weights, so
   rows/lanes of padding garbage contribute exact zeros — results are
   BITWISE identical to the single-chip kernel;
-* per-sweep ICI traffic is O(halo rows x NEp) per device; the table block,
-  offset/weight slices, and scratch stay device-resident.
+* per-sweep traffic is O(halo rows x NEp) per device; the table block and
+  offset/weight slices stay device-resident.
 
 Requires halo width <= per-device block height (the reach never spans more
 than the immediate neighbor); raise otherwise and use fewer devices.
@@ -36,8 +35,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from ..engine import SolveResult, convergence_stop, policy_dtype_for
 from ..ops.interp import InterpPlan
-from ..ops.pallas_backup6 import (PallasBackup6D, _round_up,
-                                  auto_row_tile)
+from ..ops.pallas_backup6 import DEFAULT_ROW_TILE, PallasBackup6D, _round_up
 from .sharded import _record_check
 
 __all__ = ["value_iteration_finite_halo6", "value_iteration_converged_halo6"]
@@ -54,8 +52,7 @@ def _build_rowsharded(plan: InterpPlan, cost_terms, n_dev: int, kernel_kw):
     flat = len(plan.query_shape) != plan.ndim + 1
     state_shape = plan.grid_shape if flat else plan.query_shape[:-1]
     NW = int(np.prod(state_shape[:row_axes]))
-    NEp = _round_up(int(np.prod(state_shape[row_axes:])), 128)
-    T = kernel_kw.get("row_tile") or auto_row_tile(NEp)
+    T = kernel_kw.get("row_tile") or DEFAULT_ROW_TILE
     B = _round_up(-(-NW // n_dev), T)            # block rows, whole tiles
     kw = dict(kernel_kw, row_tile=T, row_pad_to=n_dev * B)
     bk = PallasBackup6D(plan, cost_terms, **kw)
@@ -70,15 +67,9 @@ def _build_rowsharded(plan: InterpPlan, cost_terms, n_dev: int, kernel_kw):
 def _slice_plan_actions(plan, sl: slice):
     """A plan restricted to an action-index slice (arrays with a singleton
     action axis are shared by every action and pass through)."""
-    from ..ops.pallas_backup6 import RecomputePlan
-
     def cut(a):
         return a[..., sl] if a.shape[-1] > 1 else a
 
-    if isinstance(plan, RecomputePlan):
-        return RecomputePlan([cut(x) for x in plan.lo],
-                             [cut(x) for x in plan.frac],
-                             plan.spec, plan.grid_shape, plan.row_axes)
     return InterpPlan(tuple(cut(x) for x in plan.lo),
                       tuple(cut(x) for x in plan.frac), plan.grid_shape)
 
@@ -443,7 +434,7 @@ def value_iteration_converged_halo6(
     ``|errorF| < tol``. The table never leaves its row shards — the checksums
     are one scalar ``psum`` each over the mesh axis, so every device makes
     the identical stopping decision. Padding rows/lanes (the kernel tiles to
-    whole row tiles and 128 lanes) are masked out of the sums, so the
+    whole row tiles and lane blocks) are masked out of the sums, so the
     checksums match the single-chip converged engine up to shard reduction
     order (~1 ulp); values/argmin are bitwise equal to single-chip.
 
@@ -468,7 +459,8 @@ def value_iteration_converged_halo6(
     def run(v_blk, *args_l):
         halo_pad = _make_halo_pad(axis_name, n_dev, lo, hi)
         # mask of REAL cells in this device's (B, NEp) block: the kernel
-        # pads rows to whole tiles / lanes to 128 and writes garbage there
+        # pads rows to whole tiles / lanes to whole blocks and writes
+        # garbage there
         # (zero-weight taps keep it out of real cells); it must not reach
         # the convergence checksums
         row0 = jax.lax.axis_index(axis_name) * B

@@ -1,17 +1,18 @@
 """Multi-host (DCN) initialization and mesh construction.
 
 The reference is a single MATLAB process (SURVEY.md §2.5: no NCCL/MPI/Gloo
-anywhere); the TPU-native comms story is ``jax.distributed`` for process
-bootstrap plus XLA collectives over ICI (intra-slice) and DCN (cross-host).
+anywhere); the comms story here is ``jax.distributed`` for process
+bootstrap plus XLA collectives within a host (NVLink between a host's GPUs)
+and across hosts.
 This module is the thin bootstrap layer: both sharded engines
 (``parallel.sharded``, ``parallel.halo``) are mesh-agnostic — hand them a
 multi-host mesh from :func:`make_mesh` and their ``all_gather`` /
 ``ppermute`` collectives ride whatever fabric connects the devices.
 
-Layout guidance (jax-ml.github.io/scaling-book): put the STATE axis of the
-mesh on the intra-slice dimension so per-sweep halo/gather traffic rides
-ICI; use a host-level axis only for coarse work splitting (e.g. one
-pos-att channel per host — the embarrassingly-parallel "expert" axis).
+Layout guidance: put the STATE axis of the mesh within a host so per-sweep
+halo/gather traffic stays on the host's device links; use a host-level
+axis only for coarse work splitting (e.g. one pos-att channel per host —
+the embarrassingly-parallel "expert" axis).
 
 Single-host with N local devices needs no initialization — ``make_mesh``
 alone suffices (and is how the test suite runs, on 8 virtual CPU devices).
@@ -35,9 +36,9 @@ def initialize_distributed(
 ) -> None:
     """Bootstrap multi-process JAX (one process per host).
 
-    On TPU pods the arguments are auto-detected from the environment; pass
-    them explicitly elsewhere. Safe to call once per process, before any
-    computation. No-op for a single process.
+    Pass the coordinator address, process count and process id explicitly
+    (nothing here detects a cluster from the environment). Safe to call
+    once per process, before any computation. No-op for a single process.
     """
     if num_processes is not None and num_processes <= 1:
         return
@@ -58,8 +59,8 @@ def make_mesh(
 
     ``axis_sizes`` defaults to putting every device on the first axis. Axis
     order follows JAX device order: earlier axes change slowest, so placing
-    the state axis LAST keeps neighboring state blocks on physically
-    adjacent (ICI-connected) devices for the halo engine.
+    the state axis LAST keeps neighboring state blocks on consecutive
+    devices for the halo engine.
     """
     devs = np.array(devices if devices is not None else jax.devices())
     n = devs.size

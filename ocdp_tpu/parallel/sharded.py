@@ -1,6 +1,6 @@
 """Sharded Bellman backups: state-grid + action-axis sharding via ``shard_map``.
 
-Design (TPU-first, see SURVEY.md §2.5/§5):
+Design (see SURVEY.md §2.5/§5):
 
 * **State-grid sharding** (the DP analog of data parallelism): the query
   tensors ``f(x,u)`` and the stage cost are sharded in blocks along one state
@@ -8,7 +8,7 @@ Design (TPU-first, see SURVEY.md §2.5/§5):
   ``V`` — which every shard must read, because dynamics can carry a next
   state anywhere in the grid — is kept **replicated**; each sweep every
   device computes the backup for its own state block and the new table is
-  reassembled with one ``all_gather`` over ICI. Per sweep this moves
+  reassembled with one ``all_gather``. Per sweep this moves
   O(|grid|) bytes while computing O(|grid| x |actions|) FLOPs, so the
   collective is negligible next to the backup itself (the reference's grids
   have 3–1000 actions per state).

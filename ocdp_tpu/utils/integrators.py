@@ -219,8 +219,8 @@ def integrator_kwargs(name: str, tol=None):
     'rk4' — ONE classical RK4 step per stage interval, no adaptive
     while_loop. The closed loops step at the reference's h = 5 ms, where a
     single 4th-order step is already at f32 accuracy; without the nested
-    step-control loops the rollout scan vectorizes ~an order of magnitude
-    faster on TPU (the receding-horizon serving path).
+    step-control loops the rollout scan vectorizes cleanly across a fleet
+    (the receding-horizon serving path).
 
     ``tol=None`` keeps each pair's reference defaults (rkf45: the Curtis
     1e-8; ode45: MATLAB RelTol=1e-3 / AbsTol=1e-6). An explicit ``tol``

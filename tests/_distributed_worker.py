@@ -46,9 +46,10 @@ def main():
         problem.plan, problem.stage_cost, 11, mesh)
 
     # halo-exchange engine across the SAME process boundary: the per-sweep
-    # ppermute of boundary slabs is the ring/ICI-analog collective riding
-    # DCN here. Outputs stay sharded over "s" (not fully addressable), so
-    # each process saves its OWN row shards for the host to check.
+    # ppermute of boundary slabs is the ring collective riding the
+    # cross-process link here. Outputs stay sharded over "s" (not fully
+    # addressable), so each process saves its OWN row shards for the host
+    # to check.
     from ocdp_tpu.parallel import value_iteration_finite_halo
 
     problem2 = kirk.build(kirk.KirkConfig(N=6, dx=64, du=12))

@@ -22,7 +22,8 @@ def test_simplified_matches_oracle(impl):
     cfg = small_cfg()
     # strict reference parity (the numpy oracle extrapolates like MATLAB)
     sol = attitude.solve_simplified(cfg, num_sweeps=6, impl=impl,
-                                    edge="extrapolate")
+                                    edge="extrapolate",
+                                    interpret=impl == "rowlane")
     c_h = 1 + cfg.h / 2 + cfg.h**2 / 6 + cfg.h**3 / 24
     for i in range(3):
         s_w, s_t = sol.axes[i]
@@ -160,15 +161,17 @@ def test_non_integer_stage_count_warns():
 
 
 def test_rollout_full_flat_matches_nonflat():
-    """Envelope-layout solutions (flat rows x lanes result tables,
-    VERDICT r4 item 5) must fly on device WITHOUT 6-D torque tables: the
+    """Big-grid-layout solutions (flat rows x lanes result tables) must
+    fly on device WITHOUT 6-D torque tables: the
     flat path's affine locate + scalar argmin gather must reproduce the
     small-grid u_tables/nearest_eval rollout trajectory exactly, and the
     flat u_tables decode must come back as host numpy."""
     cfg = small_cfg(n_mesh_w=5, n_mesh_q=4, T_final=30.0)
-    sol_nf = attitude.solve_full(cfg, num_sweeps=50, impl="pallas")
-    sol_fl = attitude.solve_full(cfg, num_sweeps=50, impl="pallas",
-                                 flat=True, carry_padded=True)
+    sol_nf = attitude.solve_full(cfg, num_sweeps=50, impl="rowlane",
+                                 interpret=True)
+    sol_fl = attitude.solve_full(cfg, num_sweeps=50, impl="rowlane",
+                                 interpret=True, flat=True,
+                                 carry_padded=True)
     assert not sol_nf.is_flat and sol_fl.is_flat
     # same policy either layout
     np.testing.assert_array_equal(sol_fl.argmin_6d(),
@@ -194,13 +197,16 @@ def test_solve_full_segmented_checkpoint_resume(tmp_path):
     from ocdp_tpu.io import load_values
 
     cfg = attitude.AttitudeConfig(n_mesh_w=5, n_mesh_q=4)
-    ref = attitude.solve_full(cfg, num_sweeps=8, impl="pallas", flat=True)
+    ref = attitude.solve_full(cfg, num_sweeps=8, impl="rowlane",
+                              interpret=True, flat=True)
     ckpt = str(tmp_path / "att6.npz")
-    attitude.solve_full(cfg, num_sweeps=5, impl="pallas", flat=True,
+    attitude.solve_full(cfg, num_sweeps=5, impl="rowlane", interpret=True,
+                        flat=True,
                         segment_size=3, checkpoint_path=ckpt)
     v, sweep, _ = load_values(ckpt)
     assert sweep == 5
-    got = attitude.solve_full(cfg, num_sweeps=8, impl="pallas", flat=True,
+    got = attitude.solve_full(cfg, num_sweeps=8, impl="rowlane",
+                              interpret=True, flat=True,
                               segment_size=3, init_values=v,
                               start_sweep=sweep)
     np.testing.assert_array_equal(got.values_6d(), ref.values_6d())

@@ -16,7 +16,7 @@ def test_bench_baseline_helper_runs():
 
 
 def test_bench_json_contract_keys():
-    # static check of the printed dict keys without paying a TPU solve
+    # static check of the printed dict keys without paying a solve
     import ast
     import inspect
 

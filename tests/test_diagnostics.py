@@ -87,8 +87,8 @@ def test_sweep_timer_counters():
 
 def test_pos_att_high_res_config_builds():
     """BASELINE.json config #5: the high-res coupled grid is a first-class
-    named config; building its channel problem must work (solving it is a
-    TPU-scale job, exercised by bench/NOTES not CI)."""
+    named config; building its channel problem must work (solving it is
+    chip_smoke.py's job on the GPU, not CI's)."""
     from ocdp_tpu.models import pos_att
 
     cfg = pos_att.PosAttConfig.high_res()

@@ -1,8 +1,8 @@
-"""Randomized 4-D row/lane-kernel agreement fuzz (VERDICT r3 item 2).
+"""Randomized 4-D row/lane-kernel agreement fuzz.
 
-Round 3's worst bug — an unconditional separable lane lerp, 8e-4 off the
-oracle — lived in the 4-D/6-D rowlane path and was caught by manual float64
-replication, not by the (2-D-only) fuzz suite. This fuzz sweeps random
+A separable lane lerp applied to lane-coupled queries is 8e-4 off the
+oracle — a bug class only a 4-D/6-D check catches, not the (2-D-only)
+fuzz suite. This fuzz sweeps random
 pos-att-class 4-D problems (Solver_pos_att.m:299-328's structure: two
 action-coupled row axes, two drift lane axes) through the float64 brute-
 force oracle, the XLA stencil, and :class:`PermutedRowLaneBackup` — BOTH
@@ -11,8 +11,8 @@ DELIBERATELY lane-coupled queries (x' also depends on t) — and asserts:
 
 * values agree with the float64 oracle to 2e-6 * scale (far below the
   8e-4 bug-class signature, and tighter than the 1e-5 the verdict asked);
-* the kernel's separability detector classifies each plan correctly, so a
-  coupled plan can never ride the separable lerp again.
+* a coupled plan is served exactly (the kernel accumulates joint lane
+  combos for every plan).
 """
 
 import jax.numpy as jnp
@@ -96,10 +96,8 @@ def test_random_4d_rowlane_vs_float64_oracle(seed, couple_lanes):
                                     for a in grid.axes], nexts, cost64)
     scale = max(1.0, float(np.abs(ref_v).max()))
 
-    bk = PermutedRowLaneBackup(plan, terms, perm=(1, 3, 0, 2), row_axes=2)
-    # the detector must classify the plan's lane structure correctly —
-    # round 3's bug WAS a coupled plan riding the separable lerp
-    assert bk.bk.lane_separable is (not couple_lanes)
+    bk = PermutedRowLaneBackup(plan, terms, perm=(1, 3, 0, 2), row_axes=2,
+                               interpret=True)
     out = bk(jnp.asarray(v))
     np.testing.assert_allclose(np.asarray(out.values), ref_v,
                                atol=2e-6 * scale)

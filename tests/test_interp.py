@@ -1,6 +1,6 @@
 """Interpolation-kernel unit tests vs the independent numpy oracle.
 
-The TPU-build equivalent of the reference's semantics-exploration tests
+The JAX-build equivalent of the reference's semantics-exploration tests
 (test/test_griddedInterp.m): correctness on known surfaces, extrapolation
 behavior, rectilinear (sym_linspace) axes."""
 

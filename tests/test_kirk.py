@@ -1,6 +1,6 @@
 """Kirk ch.3 regulator end-to-end tests (golden parity problem).
 
-TPU-build analog of the reference's quality gates (SURVEY.md §4):
+JAX-build analog of the reference's quality gates (SURVEY.md §4):
 * small-config solve cross-checked against the brute-force numpy DP oracle,
 * the golden-run configuration (test/obj_1.txt: N=130, dx=35, du=100) rollout
   from X0=[2;1] must regulate the state to the origin with bounded controls —
@@ -8,6 +8,7 @@ TPU-build analog of the reference's quality gates (SURVEY.md §4):
 """
 
 import numpy as np
+import pytest
 
 from ocdp_tpu.models import kirk
 from oracle import bellman_backup as np_backup
@@ -148,3 +149,38 @@ def test_ssu_rollout_matches_oracle():
                                    [fixed] * (cfg.N - 1))
     np.testing.assert_allclose(np.asarray(U), U_ref, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(np.asarray(X), X_ref, rtol=1e-4, atol=1e-4)
+
+
+def _chip_smoke():
+    """chip_smoke.py's float64 Kirk helpers (the card's Kirk reference)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("impl", ["gather", "stencil", "basegather"])
+def test_float64_oracle_matches_the_float32_solves(impl):
+    cs = _chip_smoke()
+    cfg = kirk.KirkConfig(N=7, dx=20, du=41)
+    V64, A64 = cs.kirk_oracle64(cfg, cfg.N - 1)
+    assert V64.dtype == np.float64 and A64.shape == (cfg.N - 1, 20, 20)
+    res = kirk.solve(cfg, impl=impl).result
+    err, agree = cs.reading(impl, res.values, res.argmin, V64, A64[-1])
+    assert err < cs.RTOL and agree >= cs.MIN_AGREE, (err, agree)
+
+
+def test_golden_flight_matches_float64_flight():
+    cs = _chip_smoke()
+    cfg = kirk.KirkConfig.golden()
+    X64, U64 = cs.kirk_flight64(cfg, cs.kirk_oracle64(cfg, cfg.N - 1)[1],
+                                (2.0, 1.0))
+    X, U = kirk.optimal_path(kirk.solve(cfg), (2.0, 1.0))
+    assert X64.shape == (cfg.N, 2) and U64.shape == (cfg.N - 1,)
+    np.testing.assert_allclose(np.asarray(X), X64, atol=cs.GOLDEN_ATOL)
+    np.testing.assert_allclose(np.asarray(U), U64, atol=cs.GOLDEN_ATOL)
+    np.testing.assert_allclose(U64[:3], [-7.3, -4.0, -2.4], atol=0.15)

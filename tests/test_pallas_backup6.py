@@ -1,10 +1,9 @@
-"""6-D Pallas backup kernel vs the gather oracle (interpret mode on CPU).
+"""6-D row/lane backup kernel vs the gather oracle (interpret mode on CPU).
 
 The kernel must reproduce the generic gather backup exactly: multilinear
 interpolation with MATLAB extrapolation semantics, factorized stage cost,
 flat C-order first-min argmin (Solver_attitude.m:384-411). Sizes here are
-small; the at-scale run (11^3 x 10^3 on a real chip) is exercised by
-bench/NOTES, not CI.
+small; the at-scale run (11^3 x 10^3 on a GPU) is chip_smoke.py's.
 """
 
 import jax
@@ -31,7 +30,7 @@ def small_problem():
 
 def test_single_sweep_matches_gather(small_problem):
     _, grid, plan, cost = small_problem
-    bk = build_pallas_backup_6d(plan, cost, row_tile=8)
+    bk = build_pallas_backup_6d(plan, cost, row_tile=8, interpret=True)
     v = jax.random.uniform(jax.random.PRNGKey(0), grid.shape, jnp.float32)
     ref = bellman_backup(v, plan, _full_cost(plan, cost))
     out = bk(v)
@@ -43,7 +42,8 @@ def test_single_sweep_matches_gather(small_problem):
 
 def test_multi_sweep_engine_parity(small_problem):
     cfg, _, _, _ = small_problem
-    sol_p = attitude.solve_full(cfg, num_sweeps=5, impl="pallas")
+    sol_p = attitude.solve_full(cfg, num_sweeps=5, impl="rowlane",
+                                interpret=True)
     sol_g = attitude.solve_full(cfg, num_sweeps=5, impl="gather")
     np.testing.assert_allclose(np.asarray(sol_p.result.values),
                                np.asarray(sol_g.result.values),
@@ -56,7 +56,7 @@ def test_multi_sweep_engine_parity(small_problem):
 def test_row_tile_not_dividing_rows(small_problem):
     """NW = 125 with row_tile=16 forces row padding paths."""
     _, grid, plan, cost = small_problem
-    bk = build_pallas_backup_6d(plan, cost, row_tile=16)
+    bk = build_pallas_backup_6d(plan, cost, row_tile=16, interpret=True)
     v = jax.random.uniform(jax.random.PRNGKey(1), grid.shape, jnp.float32)
     ref = bellman_backup(v, plan, _full_cost(plan, cost))
     out = bk(v)
@@ -66,11 +66,25 @@ def test_row_tile_not_dividing_rows(small_problem):
                                   np.asarray(ref.argmin))
 
 
+def test_min_only_sweep_matches_tracking_values(small_problem):
+    """track_argmin=False (min-only sweeps): values BITWISE equal to the
+    tracking kernel's (same where-min, argmin select chain dropped),
+    argmin output all-zeros."""
+    _, grid, plan, cost = small_problem
+    v = jax.random.normal(jax.random.PRNGKey(3), grid.shape, jnp.float32)
+    ref = build_pallas_backup_6d(plan, cost, row_tile=8, interpret=True)(v)
+    got = build_pallas_backup_6d(plan, cost, row_tile=8, interpret=True,
+                                 track_argmin=False)(v)
+    np.testing.assert_array_equal(np.asarray(got.values),
+                                  np.asarray(ref.values))
+    assert not np.any(np.asarray(got.argmin))
+
+
 def test_asymmetric_euler_meshes():
     """Unequal Euler axis sizes exercise non-uniform lane strides."""
     cfg = attitude.AttitudeConfig(n_mesh_w=4, n_mesh_q=3)
     grid, plan, cost = attitude.build_full(cfg)
-    bk = build_pallas_backup_6d(plan, cost, row_tile=8)
+    bk = build_pallas_backup_6d(plan, cost, row_tile=8, interpret=True)
     v = jax.random.uniform(jax.random.PRNGKey(2), grid.shape, jnp.float32)
     ref = bellman_backup(v, plan, _full_cost(plan, cost))
     out = bk(v)
@@ -81,22 +95,6 @@ def test_asymmetric_euler_meshes():
 
 
 @pytest.mark.slow
-def test_hbm_table_mode_bitwise(small_problem):
-    """The HBM/DMA-window path (tables past the scoped-VMEM budget) must be
-    BITWISE identical to the VMEM-resident path — same rolls, same
-    accumulate order, only the window source differs."""
-    _, grid, plan, cost = small_problem
-    bk_v = build_pallas_backup_6d(plan, cost, row_tile=8, table_hbm=False)
-    bk_h = build_pallas_backup_6d(plan, cost, row_tile=8, table_hbm=True)
-    v = jax.random.uniform(jax.random.PRNGKey(4), grid.shape, jnp.float32)
-    rv, rh = bk_v(v), bk_h(v)
-    np.testing.assert_array_equal(np.asarray(rv.values),
-                                  np.asarray(rh.values))
-    np.testing.assert_array_equal(np.asarray(rv.argmin),
-                                  np.asarray(rh.argmin))
-
-
-@pytest.mark.slow
 def test_flat_plan_matches_full(small_problem):
     """Flat (rows, lanes, actions) plans — how envelope-scale plans are
     born on-device — must produce the same backup as the d-D broadcast
@@ -104,8 +102,8 @@ def test_flat_plan_matches_full(small_problem):
     cfg, grid, plan, cost = small_problem
     _, plan_f, cost_f = attitude.build_full(cfg, flat=True)
     assert attitude.plan_is_flat(plan_f) and not attitude.plan_is_flat(plan)
-    bk = build_pallas_backup_6d(plan, cost, row_tile=8)
-    bk_f = build_pallas_backup_6d(plan_f, cost_f, row_tile=8)
+    bk = build_pallas_backup_6d(plan, cost, row_tile=8, interpret=True)
+    bk_f = build_pallas_backup_6d(plan_f, cost_f, row_tile=8, interpret=True)
     v = jax.random.uniform(jax.random.PRNGKey(5), grid.shape, jnp.float32)
     r, rf = bk(v), bk_f(v)
     np.testing.assert_array_equal(np.asarray(r.values), np.asarray(rf.values))
@@ -118,9 +116,11 @@ def test_flat_plan_solve_full_end_to_end(small_problem):
     (flat results come back in the flat layout; compare via the host
     views)."""
     cfg, _, _, _ = small_problem
-    sol_f = attitude.solve_full(cfg, num_sweeps=4, impl="pallas", flat=True,
+    sol_f = attitude.solve_full(cfg, num_sweeps=4, impl="rowlane",
+                                interpret=True, flat=True,
                                 carry_padded=False)
-    sol = attitude.solve_full(cfg, num_sweeps=4, impl="pallas", flat=False)
+    sol = attitude.solve_full(cfg, num_sweeps=4, impl="rowlane",
+                              interpret=True, flat=False)
     np.testing.assert_array_equal(sol_f.values_6d(),
                                   np.asarray(sol.result.values))
     np.testing.assert_array_equal(sol_f.argmin_6d(),
@@ -129,7 +129,7 @@ def test_flat_plan_solve_full_end_to_end(small_problem):
 
 def test_flat_plan_rejects_stencil_impl(small_problem):
     cfg, _, _, _ = small_problem
-    with pytest.raises(ValueError, match="pallas"):
+    with pytest.raises(ValueError, match="rowlane"):
         attitude.solve_full(cfg, num_sweeps=1, impl="stencil", flat=True)
 
 
@@ -140,7 +140,8 @@ def test_rejects_non_separable_plan():
 
     p = kirk.build(kirk.KirkConfig.golden())
     with pytest.raises(ValueError):
-        build_pallas_backup_6d(p.plan, p.stage_cost, row_axes=1)
+        build_pallas_backup_6d(p.plan, p.stage_cost, row_axes=1,
+                               interpret=True)
 
 
 def test_tie_break_first_min():
@@ -150,7 +151,7 @@ def test_tie_break_first_min():
     cfg = attitude.AttitudeConfig(n_mesh_w=5, n_mesh_q=4, h=0.0)
     grid, plan, cost = attitude.build_full(cfg)
     zero_terms = tuple(jnp.zeros_like(t) for t in cost)
-    bk = build_pallas_backup_6d(plan, zero_terms, row_tile=8)
+    bk = build_pallas_backup_6d(plan, zero_terms, row_tile=8, interpret=True)
     v = jax.random.uniform(jax.random.PRNGKey(3), grid.shape, jnp.float32)
     out = bk(v)
     assert int(np.asarray(out.argmin).max()) == 0
@@ -158,25 +159,6 @@ def test_tie_break_first_min():
     # queries are exact at h=0; the Euler readback is not bit-exact)
     np.testing.assert_allclose(np.asarray(out.values), np.asarray(v),
                                atol=2e-6)
-
-
-def test_lane_separability_detection(small_problem):
-    """Separable per-axis lane passes are exact ONLY when each lane axis's
-    frac is independent of the other lane axes. The attitude Euler queries
-    couple all three angles (quaternion step) -> joint combos; the pos-att
-    channel's (x, theta) lanes each depend only on their own coordinate
-    (+ rows) -> separable."""
-    _, _, plan, cost = small_problem
-    bk = build_pallas_backup_6d(plan, cost, row_tile=8)
-    assert not bk.lane_separable
-
-    from ocdp_tpu.models import pos_att
-
-    cfg = pos_att.PosAttConfig(n_mesh_x=6, n_mesh_v=6, n_mesh_t=5,
-                               n_mesh_w=4, T_final=0.25)
-    problem = pos_att.build_channel(cfg, "x")
-    rb = pos_att.build_channel_rowlane_backup(cfg, problem)
-    assert rb.bk.lane_separable  # the wrapped permuted kernel
 
 
 @pytest.mark.parametrize("block_rows", [None, 80])
@@ -216,7 +198,8 @@ def test_chunked_build_solve_matches(small_problem):
         with mock.patch.object(
                 att, "build_full",
                 lambda c, **kw: orig(c, flat=True, chunked=chunked)):
-            sols.append(att.solve_full(cfg, num_sweeps=4, impl="pallas"))
+            sols.append(att.solve_full(cfg, num_sweeps=4, impl="rowlane",
+                                       interpret=True))
     np.testing.assert_allclose(np.asarray(sols[0].result.values),
                                np.asarray(sols[1].result.values),
                                rtol=1e-5, atol=1e-4)
@@ -224,53 +207,11 @@ def test_chunked_build_solve_matches(small_problem):
             == np.asarray(sols[1].result.argmin)).mean() > 0.999
 
 
-# ---------------------------------------------------------------- round 4
-
-def _small_full(nw=7, nq=5, lane_mode="plan"):
+def _small_full(nw=7, nq=5):
     from ocdp_tpu.models import attitude
 
     cfg = attitude.AttitudeConfig(n_mesh_w=nw, n_mesh_q=nq)
-    return attitude.build_full(cfg, lane_mode=lane_mode)
-
-
-def test_lane_recompute_matches_stored_plan():
-    """Recompute mode (VERDICT r3 item 1b): the kernel regenerating the
-    Euler (lo, frac) in-kernel must agree with the stored-plan kernel to
-    f32 transcendental tolerance and with 100% argmin agreement."""
-    grid, plan_p, cost_p = _small_full()
-    grid2, plan_r, cost_r = _small_full(lane_mode="recompute")
-    bk_p = PallasBackup6D(plan_p, cost_p, interpret=True)
-    bk_r = PallasBackup6D(plan_r, cost_r, interpret=True,
-                          argmin_dtype=jnp.uint8)
-    assert len(bk_r.lane_combos) <= len(bk_p.lane_combos) + 8
-    v = jax.random.normal(jax.random.PRNGKey(0), grid.shape,
-                          jnp.float32) * 3.0
-    rp, rr = bk_p(v), bk_r(v)
-    assert rr.argmin.dtype == jnp.uint8
-    scale = float(jnp.max(jnp.abs(rp.values)))
-    assert float(jnp.max(jnp.abs(rp.values - rr.values))) < 3e-5 * max(
-        scale, 1.0)
-    assert float(jnp.mean((rp.argmin == rr.argmin.astype(jnp.int32))
-                          .astype(jnp.float32))) > 0.999
-
-
-def test_lane_recompute_through_engine():
-    """RecomputePlan rides the finite engine (narrow carry dtypes) and the
-    multi-sweep result tracks the stored-plan solve."""
-    from ocdp_tpu.engine import value_iteration_finite
-
-    grid, plan_p, cost_p = _small_full()
-    grid2, plan_r, cost_r = _small_full(lane_mode="recompute")
-    bk_p = PallasBackup6D(plan_p, cost_p, interpret=True)
-    bk_r = PallasBackup6D(plan_r, cost_r, interpret=True,
-                          argmin_dtype=jnp.uint8)
-    rp = value_iteration_finite(plan_p, None, 10, backup=bk_p)
-    rr = value_iteration_finite(plan_r, None, 10, backup=bk_r)
-    scale = float(jnp.max(jnp.abs(rp.values)))
-    assert float(jnp.max(jnp.abs(rp.values - rr.values))) < 1e-4 * scale
-    assert rr.argmin.dtype == jnp.int32   # SolveResult contract
-    assert float(jnp.mean((rp.argmin == rr.argmin)
-                          .astype(jnp.float32))) > 0.999
+    return attitude.build_full(cfg)
 
 
 def test_narrow_argmin_dtype_bitwise():
@@ -320,7 +261,7 @@ def test_laneact_coupling_rejected():
 
 
 def test_consume_plan_fast_lane():
-    """consume_plan=True end-to-end in the default lane (ADVICE r3): the
+    """consume_plan=True end-to-end in the default lane: the
     device-build path runs on CPU via the device_build override; the
     caller's flat-plan lane buffers must be deleted and the result must
     still match the oracle."""
@@ -346,11 +287,10 @@ def test_consume_plan_fast_lane():
 
 
 def test_carry_padded_bitwise():
-    """Padded-carry mode (round-4 envelope lever): the scan carry is the
-    kernel's padded table — single sweeps AND multi-sweep engine runs must
-    be bitwise the plain path (pad tiles re-zeroed, garbage rows past NW
-    re-zeroed each sweep so expansive extrapolation weights cannot
-    compound them to inf)."""
+    """Padded-carry mode: the scan carry is the kernel's padded table —
+    single sweeps AND multi-sweep engine runs must be bitwise the plain
+    path (pad blocks zeroed, garbage rows past NW re-zeroed each sweep so
+    expansive extrapolation weights cannot compound them to inf)."""
     from ocdp_tpu.engine import value_iteration_finite
     from ocdp_tpu.ops.interp import PlanShape
 
@@ -397,7 +337,8 @@ def test_flat_carry_solution_u_tables_state_shaped():
     sol = attitude.FullSolution(cfg, grid, res)
     ut = np.asarray(sol.u_tables)
     assert ut.shape == (3,) + grid.shape
-    ref = attitude.solve_full(cfg, num_sweeps=4, impl="pallas")
+    ref = attitude.solve_full(cfg, num_sweeps=4, impl="rowlane",
+                              interpret=True)
     np.testing.assert_array_equal(ut, np.asarray(ref.u_tables))
 
 
@@ -411,31 +352,3 @@ def test_carry_padded_rejects_probe_window():
         value_iteration_finite(PlanShape.of(plan), None, 2,
                                store_policies=False, backup=bk,
                                probe_window=((0, 2),) * 6)
-
-
-def test_min_only_sweep_matches_tracking_values(small_problem):
-    """track_argmin=False (the roofline min-only lever): values BITWISE
-    equal to the tracking kernel's (same where-min, argmin select chain
-    dropped), argmin output all-zeros."""
-    _, grid, plan, cost = small_problem
-    v = jax.random.normal(jax.random.PRNGKey(3), plan.grid_shape,
-                          jnp.float32)
-    ref = build_pallas_backup_6d(plan, cost, row_tile=8)(v)
-    got = build_pallas_backup_6d(plan, cost, row_tile=8,
-                                 track_argmin=False)(v)
-    np.testing.assert_array_equal(np.asarray(got.values),
-                                  np.asarray(ref.values))
-    assert not np.any(np.asarray(got.argmin))
-
-
-def test_auto_row_tile_formula():
-    """ONE tile formula shared by the single-chip kernel and halo6's
-    row-shard builder (round-5 measured cap; a second hand-maintained
-    copy is how the halo engines silently kept slower tiles once)."""
-    import ocdp_tpu.parallel.halo6 as h6
-    from ocdp_tpu.ops.pallas_backup6 import auto_row_tile
-
-    assert auto_row_tile(1024) == 16       # flagship NEp: measured best
-    assert auto_row_tile(2816) == 8        # envelope NEp: measured best
-    assert auto_row_tile(128) == 16        # cap, not the 32K target
-    assert h6.auto_row_tile is auto_row_tile

@@ -163,7 +163,7 @@ def test_failure_mode_never_fires_thruster0():
 
 
 def test_solve_channel_pallas_matches_stencil():
-    """The row/lane Pallas path (rows=(v,w), lanes=(x,t) permutation) must
+    """The row/lane kernel path (rows=(v,w), lanes=(x,t) permutation) must
     agree with the stencil solve; f32 accumulation over the converged loop
     allows rare one-combo flips only."""
     import numpy as np
@@ -171,8 +171,8 @@ def test_solve_channel_pallas_matches_stencil():
     from ocdp_tpu.models import pos_att
 
     cfg = pos_att.PosAttConfig()
-    ctrl_p, res_p = pos_att.solve_channel(cfg, "x", impl="pallas",
-                                          max_sweeps=60)
+    ctrl_p, res_p = pos_att.solve_channel(cfg, "x", impl="rowlane",
+                                          interpret=True, max_sweeps=60)
     ctrl_s, res_s = pos_att.solve_channel(cfg, "x", impl="stencil",
                                           max_sweeps=60)
     np.testing.assert_allclose(np.asarray(res_p.values),

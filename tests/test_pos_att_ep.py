@@ -3,7 +3,7 @@
 The reference solves x / y / z / x-failure serially
 (Solver_pos_att.m:217-240); ``solve_ep`` shards them over a mesh axis.
 Round-4 rebuild: each device runs the SAME ``value_iteration_converged``
-engine the serial path uses, over the fast rowlane Pallas backup rebuilt
+engine the serial path uses, over the row/lane kernel backup rebuilt
 with a union tap structure (one treedef across channels) — so EP must be
 bitwise equal to the serial rowlane solves, channel by channel.
 """
@@ -34,11 +34,11 @@ def test_union_backups_one_treedef_and_bitwise():
     vs its own-structure build (extra taps carry exactly-zero weight)."""
     cfg = small_cfg()
     problems = _problems(cfg)
-    bks = pos_att.build_ep_rowlane_backups(cfg, problems)
+    bks = pos_att.build_ep_rowlane_backups(cfg, problems, interpret=True)
     assert len({jax.tree_util.tree_structure(b) for b in bks}) == 1
     rng = np.random.default_rng(0)
     for p, uni in zip(problems, bks):
-        own = pos_att.build_channel_rowlane_backup(cfg, p)
+        own = pos_att.build_channel_rowlane_backup(cfg, p, interpret=True)
         v = jnp.asarray(rng.uniform(0, 5, p.grid.shape).astype(np.float32))
         r_own, r_uni = own(v), uni(v)
         np.testing.assert_array_equal(np.asarray(r_own.values),
@@ -54,13 +54,14 @@ def test_ep_matches_serial(include_failure):
     """EP == serial rowlane solve_channel, bitwise (values AND argmin)."""
     cfg = small_cfg()
     sol, results = pos_att.solve_ep(cfg, include_failure=include_failure,
-                                    max_sweeps=25, return_results=True)
+                                    max_sweeps=25, return_results=True,
+                                    interpret=True)
     names = ["x", "y", "z"] + (["x_failure"] if include_failure else [])
     assert set(sol.controllers) == set(names)
     for name in names:
         ctrl_ref, res_ref = pos_att.solve_channel(
             cfg, name.replace("_failure", ""), failure="failure" in name,
-            impl="pallas", max_sweeps=25)
+            impl="rowlane", interpret=True, max_sweeps=25)
         got = sol.controllers[name]
         np.testing.assert_array_equal(got.values, ctrl_ref.values)
         np.testing.assert_array_equal(got.argmin, ctrl_ref.argmin)
@@ -74,7 +75,7 @@ def test_ep_close_to_gather_oracle():
     """The rowlane kernel EP rides differs from the gather oracle only by
     f32 summation order."""
     cfg = small_cfg()
-    sol = pos_att.solve_ep(cfg, max_sweeps=30)
+    sol = pos_att.solve_ep(cfg, max_sweeps=30, interpret=True)
     for name in ("x", "y", "z"):
         ctrl_ref, _ = pos_att.solve_channel(cfg, name, impl="gather",
                                             max_sweeps=30)
@@ -89,11 +90,12 @@ def test_ep_per_channel_early_stop():
     device's while_loop exiting independently — identical stop sweep and
     tables to the serial early-stopped solves."""
     cfg = small_cfg(tol=1e12, check_every=5)
-    sol, results = pos_att.solve_ep(cfg, max_sweeps=20, return_results=True)
+    sol, results = pos_att.solve_ep(cfg, max_sweeps=20, return_results=True,
+                                    interpret=True)
     for name in ("x", "y", "z", "x_failure"):
         ctrl_ref, res_ref = pos_att.solve_channel(
             cfg, name.replace("_failure", ""), failure="failure" in name,
-            impl="pallas", max_sweeps=20)
+            impl="rowlane", interpret=True, max_sweeps=20)
         assert bool(res_ref.converged)
         assert results[name]["converged"]
         assert results[name]["num_sweeps"] == int(res_ref.num_sweeps)
@@ -106,7 +108,7 @@ def test_ep_failure_channel_action_padding():
     """The padded (inf-cost) combos of the 6-action failure channel must
     never be selected."""
     cfg = small_cfg()
-    sol = pos_att.solve_ep(cfg, max_sweeps=10)
+    sol = pos_att.solve_ep(cfg, max_sweeps=10, interpret=True)
     n_fail_actions = sol.controllers["x_failure"].forces.shape[0]
     assert n_fail_actions == 6
     assert sol.controllers["x_failure"].argmin.max() < n_fail_actions
@@ -117,24 +119,25 @@ def test_live_sets_must_be_superset():
     loudly (guards against a stale union)."""
     cfg = small_cfg()
     p = pos_att.build_channel(cfg, "y")   # widest row reach (+-2)
-    own = pos_att.build_channel_rowlane_backup(cfg, p).bk
+    own = pos_att.build_channel_rowlane_backup(cfg, p, interpret=True).bk
     bad = (own.w_taps, own.row_combos[:-1], own.e_taps, own.lane_combos)
     with pytest.raises(ValueError, match="do not cover"):
-        pos_att.build_channel_rowlane_backup(cfg, p, live_sets=bad)
+        pos_att.build_channel_rowlane_backup(cfg, p, live_sets=bad,
+                                             interpret=True)
 
 
 def test_solve_unified_single_program_matches_serial():
-    """pos_att.solve(impl='pallas') routes every channel through ONE jitted
-    program over the union-treedef backups (one Mosaic compile for x, y, z,
-    x-failure); results must stay bitwise equal to the per-channel
-    solve_channel builds."""
+    """pos_att.solve(impl='rowlane') routes every channel through ONE
+    jitted program over the union-treedef backups (one kernel compile for
+    x, y, z, x-failure); results must stay bitwise equal to the
+    per-channel solve_channel builds."""
     cfg = small_cfg()
-    sol = pos_att.solve(cfg, impl="pallas", max_sweeps=25)
+    sol = pos_att.solve(cfg, impl="rowlane", interpret=True, max_sweeps=25)
     assert set(sol.controllers) == {"x", "y", "z", "x_failure"}
     for name in ("x", "y", "z", "x_failure"):
         ctrl_ref, _ = pos_att.solve_channel(
             cfg, name.replace("_failure", ""), failure="failure" in name,
-            impl="pallas", max_sweeps=25)
+            impl="rowlane", interpret=True, max_sweeps=25)
         got = sol.controllers[name]
         np.testing.assert_array_equal(got.values, ctrl_ref.values)
         np.testing.assert_array_equal(got.argmin, ctrl_ref.argmin)
@@ -146,7 +149,7 @@ def test_solve_unified_compiles_once():
     the converged engine."""
     cfg = small_cfg()
     problems = _problems(cfg)
-    bks = pos_att.build_ep_rowlane_backups(cfg, problems)
+    bks = pos_att.build_ep_rowlane_backups(cfg, problems, interpret=True)
     from functools import partial
 
     from ocdp_tpu.engine import value_iteration_converged

@@ -50,7 +50,7 @@ def _envelope_backup(cfg):
 
     grid, plan, cost = attitude.build_full(cfg, flat=True)
     bk = build_pallas_backup_6d(plan, cost, carry_padded=True,
-                                argmin_dtype=np.uint8)
+                                argmin_dtype=np.uint8, interpret=True)
     return grid, PlanShape.of(plan), bk
 
 

@@ -96,8 +96,8 @@ def test_make_mesh_2d():
 def test_make_mesh_device_order_contract():
     """Pin the layout claim in make_mesh's docstring: axes follow JAX device
     order with the LAST mesh axis fastest-varying, so blocks of a state axis
-    placed last land on consecutive (ICI-adjacent on real topologies)
-    devices (parallel/multihost.py docstring; scaling-book mesh recipe)."""
+    placed last land on consecutive devices (parallel/multihost.py
+    docstring)."""
     from ocdp_tpu.parallel import make_mesh
 
     devs = jax.devices()[:8]

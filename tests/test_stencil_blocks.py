@@ -45,7 +45,7 @@ def test_multiaxis_blocked_matches_unblocked(blocks):
 
     Values are ULP-tolerant, not bitwise: XLA CPU contracts mul+add into
     FMA differently depending on the block shapes it vectorizes over
-    (measured <= 4.8e-7 abs on this workload; the real TPU is bitwise).
+    (measured <= 4.8e-7 abs on this workload).
     Argmin must agree exactly — the ULP drift never crosses a tie here.
     """
     problem = kirk.build(kirk.KirkConfig(N=10, dx=20, du=50))
